@@ -1,6 +1,8 @@
 # Container packaging parity with the reference (its Dockerfile installs
-# the CLI as a system binary, reference Dockerfile:1-23).  For TPU VMs
-# use a jax[tpu]-enabled base; this default builds the CPU/test image.
+# the CLI as a system binary, reference Dockerfile:1-23).  For an NVIDIA
+# GPU use a CUDA base image with nvcc and jax[cuda12] (the banded-SW
+# kernel compiles with nvcc at first use); this default builds the
+# CPU/test image.
 FROM python:3.11-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \

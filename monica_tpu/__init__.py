@@ -1,8 +1,9 @@
-"""monica_tpu — a TPU-native real-time metagenomic classification engine.
+"""monica_tpu — a real-time metagenomic classification engine on JAX,
+run on an NVIDIA GPU (the package name is historical).
 
-A from-scratch re-design of the capabilities of DrQuestion/monica
-(reference: /root/reference — a minimap2/mappy-wrapping CPU pipeline,
-see `monica/monica.py`) built TPU-first on jax/XLA/Pallas:
+A from-scratch re-design of the capabilities of DrQuestion/monica (a
+minimap2/mappy-wrapping CPU pipeline, see its `monica/monica.py`) built
+on jax/XLA:
 
 * the genome "database + .mmi index" stage (`monica/genomes/database.py`,
   `monica/genomes/aligner.py:31-62` in the reference) becomes a packed
@@ -10,7 +11,7 @@ see `monica/monica.py`) built TPU-first on jax/XLA/Pallas:
   (:mod:`monica_tpu.index`);
 * the per-read mappy alignment loop (`monica/genomes/aligner.py:179-279`)
   becomes a batched, jit-compiled seed→chain→extend pipeline with a
-  Pallas banded Smith–Waterman kernel (:mod:`monica_tpu.ops`,
+  CUDA banded Smith–Waterman kernel (:mod:`monica_tpu.ops`,
   :mod:`monica_tpu.align`);
 * scaling is via `shard_map` over a ('data', 'index') device mesh with
   XLA collectives (:mod:`monica_tpu.parallel`) instead of thread pools;

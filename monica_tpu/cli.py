@@ -6,7 +6,7 @@ analysis run plus ``build_index`` / ``list_indexes`` / ``plot_only`` /
 ``initialize`` subcommands (with the same aliases), species values that
 may be files listing taxa, and the ``human_readable`` memory type.
 
-TPU-native additions: ``--n_shards`` (index mesh axis size — replaces
+Additions: ``--n_shards`` (index mesh axis size — replaces
 the implicit RAM/4/16 chunking), ``--extend`` (banded Smith–Waterman
 refinement), ``--watch`` (first-class real-time loop instead of an
 external re-invoking watcher), and offline transports
@@ -64,8 +64,9 @@ def _common_parser() -> argparse.ArgumentParser:
     )
     al.add_argument("--extend", action=argparse.BooleanOptionalAction, default=True,
                     help="banded Smith-Waterman refinement + low-seed rescue "
-                         "(Pallas kernel; --no-extend for the seed-vote-only fast path)")
-    al.add_argument("--band", type=int, default=64, help="extension band width (<=64 uses the two-reads-per-row kernel)")
+                         "(CUDA kernel on a GPU; --no-extend for the seed-vote-only fast path)")
+    al.add_argument("--band", type=int, default=64,
+                    help="extension band width (the CUDA kernel takes 32, 64 or 128)")
     al.add_argument("--frac", type=float, default=1.0,
                     help="scaled-winnowing fraction (0<f<=1): subsample "
                          "minimizers on BOTH index and query sides; validated "
@@ -101,9 +102,8 @@ def _common_parser() -> argparse.ArgumentParser:
         "devices.  Per-host contract: each process passes its OWN -q/-o\n"
         "folders and classifies its own sample files (lockstep collective\n"
         "dispatch handles shape agreement); the per-host output tables'\n"
-        "union is the global result.  With no coordinator flags, jax\n"
-        "auto-detects the cluster (TPU metadata / JAX_COORDINATOR_ADDRESS\n"
-        "+ JAX_NUM_PROCESSES + JAX_PROCESS_ID).",
+        "union is the global result.  Give --coordinator host:port,\n"
+        "--num_processes and --process_id on every host.",
     )
     mh.add_argument("--multihost", action="store_true",
                     help="initialize jax.distributed before building the mesh")
@@ -127,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     common = _common_parser()
     p = argparse.ArgumentParser(
         prog="monica_tpu",
-        description="TPU-native real-time quantitative metagenomics",
+        description="real-time quantitative metagenomics on a GPU",
         formatter_class=SmartFormatter,
         parents=[common],
     )

@@ -34,8 +34,6 @@ import os
 import time
 from pathlib import Path
 
-import pandas as pd
-
 from monica_tpu.data import tables
 from monica_tpu.data.taxonomy import Taxonomy, descendants_taxid_finder
 
@@ -45,14 +43,27 @@ PARENTS = [
 ]
 
 
-def _genomic_fna_urls(df: pd.DataFrame) -> pd.DataFrame:
-    urls = [
-        f"{ftp}/{str(ftp).rsplit('/', 1)[-1]}_genomic.fna.gz"
-        for ftp in df["ftp_path"]
+def _genomic_fna_urls(rows: tables.Rows) -> tables.Rows:
+    return [
+        {**r, "ftp_path": f"{r['ftp_path']}/{str(r['ftp_path']).rsplit('/', 1)[-1]}_genomic.fna.gz"}
+        for r in rows
     ]
-    df = df.copy()
-    df["ftp_path"] = urls
-    return df
+
+
+def _merge(rows: tables.Rows, keys: dict[str, list[str]]) -> tables.Rows:
+    """Inner join on the one column of ``keys`` (the reference's
+    ``DataFrame.merge(on=...)``): left order, one row per matching key."""
+    (col, values), = keys.items()
+    mult: dict[str, int] = {}
+    for v in values:
+        mult[v] = mult.get(v, 0) + 1
+    return [dict(r) for r in rows for _ in range(mult.get(r[col], 0))]
+
+
+def _dedup_keep_last(rows: tables.Rows, col: str) -> tables.Rows:
+    """``drop_duplicates(subset=[col], keep="last")``."""
+    last = {r[col]: i for i, r in enumerate(rows)}
+    return [r for i, r in enumerate(rows) if last[r[col]] == i]
 
 
 def _species_name_single(name: str) -> str:
@@ -78,17 +89,17 @@ def ftp_selector(
     taxonomy: Taxonomy,
     tables_dir: str | os.PathLike,
     downloader: tables.Downloader = tables.urllib_downloader,
-) -> pd.DataFrame:
-    """Selection table with ``species_name`` and downloadable
+) -> tables.Rows:
+    """Selection rows with ``species_name`` and downloadable
     ``ftp_path`` per assembly (reference `ftp_selector`)."""
     if mode == "overnight":
         taxids = descendants_taxid_finder(taxonomy, PARENTS)
-        table = tables.importer(tables_dir, "refseq", downloader)
-        merged = table.merge(taxids, on="taxid")
-        parts = merged["organism_name"].str.split(" ")
-        merged["genera"] = [p[0] for p in parts]
-        merged["species_name"] = ["_".join(p[0:2]) for p in parts]
-        merged = merged.drop_duplicates(subset=["genera"], keep="last")
+        merged = _merge(tables.importer(tables_dir, "refseq", downloader), taxids)
+        for r in merged:
+            parts = r["organism_name"].split(" ")
+            r["genera"] = parts[0]
+            r["species_name"] = "_".join(parts[0:2])
+        merged = _dedup_keep_last(merged, "genera")
 
     elif not species:
         raise ValueError(
@@ -97,38 +108,32 @@ def ftp_selector(
 
     elif mode == "all":
         taxids = descendants_taxid_finder(taxonomy, species)
-        table = tables.importer(tables_dir, "genbank", downloader)
-        merged = table.merge(taxids, on="taxid")
-        merged["species_name"] = [
-            "_".join(n.split(" ")) for n in merged["organism_name"]
-        ]
+        merged = _merge(tables.importer(tables_dir, "genbank", downloader), taxids)
+        for r in merged:
+            r["species_name"] = "_".join(r["organism_name"].split(" "))
 
     elif mode == "single":
         vir = [s for s in species if taxonomy.is_virus(s)]
         cell = [s for s in species if not taxonomy.is_virus(s)]
         table = tables.importer(tables_dir, "refseq", downloader)
-        merged = table.merge(descendants_taxid_finder(taxonomy, cell), on="taxid")
-        merged["species_name"] = [
-            _species_name_single(n) for n in merged["organism_name"]
-        ]
-        merged = merged.drop_duplicates(subset=["species_name"], keep="last")
+        merged = _merge(table, descendants_taxid_finder(taxonomy, cell))
+        for r in merged:
+            r["species_name"] = _species_name_single(r["organism_name"])
+        merged = _dedup_keep_last(merged, "species_name")
         if vir:
-            vmerged = table.merge(descendants_taxid_finder(taxonomy, vir), on="taxid")
-            vmerged["species_name"] = [
-                "_".join(n.split(" ")) for n in vmerged["organism_name"]
-            ]
-            vmerged = vmerged.drop_duplicates(subset=["species_name"], keep="last")
-            merged = pd.concat([merged, vmerged], ignore_index=True)
+            vmerged = _merge(table, descendants_taxid_finder(taxonomy, vir))
+            for r in vmerged:
+                r["species_name"] = "_".join(r["organism_name"].split(" "))
+            merged += _dedup_keep_last(vmerged, "species_name")
 
     elif mode == "focus":
         taxids = descendants_taxid_finder(taxonomy, species, focus=True)
-        table = tables.importer(tables_dir, "genbank", downloader)
-        merged = table.merge(taxids, on="species_taxid")
-        merged["species_name"] = [
-            _species_name_focus(n, s)
-            for n, s in zip(merged["organism_name"], merged["infraspecific_name"])
-        ]
-        merged = merged.drop_duplicates(subset=["species_name"], keep="last")
+        merged = _merge(tables.importer(tables_dir, "genbank", downloader), taxids)
+        for r in merged:
+            r["species_name"] = _species_name_focus(
+                r["organism_name"], r["infraspecific_name"]
+            )
+        merged = _dedup_keep_last(merged, "species_name")
 
     else:
         raise ValueError(f"unknown selection mode: {mode!r}")
@@ -164,7 +169,7 @@ def _download_with_retry(downloader, url, out, retries: int, backoff_s: float) -
 
 
 def fetcher(
-    table: pd.DataFrame,
+    table: tables.Rows,
     genomes_dir: str | os.PathLike,
     keep_genomes: bool = True,
     format_genomes: str | os.PathLike | None = None,
@@ -192,7 +197,7 @@ def fetcher(
     genomes, new_stems = [], []
     updated = False
 
-    for _, row in table.iterrows():
+    for row in table:
         url = row["ftp_path"]
         sp_name = row["species_name"]
         if species_name_for_file is not None:
@@ -222,7 +227,7 @@ def fetcher(
 
 
 def focus_fetcher(
-    table: pd.DataFrame,
+    table: tables.Rows,
     genomes_dir: str | os.PathLike,
     keep_genomes: bool = True,
     downloader: tables.Downloader = tables.urllib_downloader,

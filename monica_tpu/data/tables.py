@@ -12,13 +12,12 @@ freshness is per-file mtime rather than a single shared date file.
 
 from __future__ import annotations
 
+import csv
 import os
 import time
 import urllib.request
 from pathlib import Path
 from typing import Callable
-
-import pandas as pd
 
 REFSEQ_SUMMARY_URL = (
     "https://ftp.ncbi.nlm.nih.gov/genomes/refseq/assembly_summary_refseq.txt"
@@ -43,6 +42,15 @@ HEADER_LINE = 1  # summaries carry a '##' comment line before the header
 TTL_DAYS = 2.0
 
 Downloader = Callable[[str, str], None]
+Rows = list[dict[str, "str | None"]]  # one dict per assembly, keyed by COLUMNS
+
+# cells read as missing (pandas' default NA spellings), like the
+# reference's pd.read_csv(dtype=str) load
+_NA = {
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null",
+}
 
 
 def urllib_downloader(url: str, out: str) -> None:
@@ -80,15 +88,20 @@ def importer(
     which: str,
     downloader: Downloader = urllib_downloader,
     ttl_days: float = TTL_DAYS,
-) -> pd.DataFrame:
-    """Load one summary as str-dtype DataFrame with the 7 columns the
-    pipeline consumes (reference `tables.importer`, tables.py:32-43)."""
+) -> Rows:
+    """Load one summary as string rows with the 7 columns the pipeline
+    consumes (reference `tables.importer`, tables.py:32-43); missing
+    cells are None."""
     path = fetch(tables_dir, which, downloader, ttl_days)
-    df = pd.read_csv(
-        path, header=HEADER_LINE, dtype="str", sep="\t", usecols=USE_COLS
-    )
-    df.columns = COLUMNS
-    return df
+    with open(path, newline="", encoding="utf-8") as fh:
+        lines = csv.reader(fh, delimiter="\t")
+        for _ in range(HEADER_LINE + 1):  # preamble + header
+            next(lines, None)
+        return [
+            {c: (None if r[i] in _NA else r[i]) for i, c in zip(USE_COLS, COLUMNS)}
+            for r in lines
+            if len(r) > max(USE_COLS)
+        ]
 
 
 def write_fixture_summary(path: str | os.PathLike, rows: list[dict]) -> None:

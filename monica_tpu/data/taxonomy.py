@@ -172,15 +172,13 @@ class Taxonomy:
 
 
 def descendants_taxid_finder(taxonomy: Taxonomy, species: list[str], focus: bool = False):
-    """Species names -> one-column str DataFrame of their taxids plus
-    all descendant taxids; column 'taxid' or 'species_taxid' in focus
-    mode (reference fetcher.py:27-43)."""
-    import pandas as pd
-
+    """Species names -> ``{column: [taxid str, ...]}`` with their taxids
+    plus all descendant taxids; column 'taxid' or 'species_taxid' in
+    focus mode (the reference's one-column frame, fetcher.py:27-43)."""
     out: list[str] = []
     for sp in species:
         for t in taxonomy.name_to_taxids(sp):
             out.append(str(t))
             out.extend(str(d) for d in taxonomy.descendants(t))
     col = "species_taxid" if focus else "taxid"
-    return pd.DataFrame(out, columns=[col])
+    return {col: out}

@@ -167,18 +167,15 @@ def simulate_read_codes(
     n_ins = rng.random(len(frag)) < p_ins
     if n_ins.any():
         out = np.empty(len(frag) + int(n_ins.sum()), dtype=np.uint8)
-        j = 0
         ins_vals = rng.integers(0, 4, int(n_ins.sum())).astype(np.uint8)
-        vi = 0
-        for i, c in enumerate(frag):
-            out[j] = c
-            j += 1
-            if n_ins[i]:
-                # homopolymer insertions duplicate the run base (the
-                # real over-call mode); elsewhere a random base
-                out[j] = c if hp[i] else ins_vals[vi]
-                j += 1
-                vi += 1
+        # base i lands after the insertions drawn for bases 0..i-1, and
+        # its own insertion (if any) right behind it
+        pos = np.arange(len(frag)) + np.cumsum(n_ins) - n_ins
+        out[pos] = frag
+        at = np.flatnonzero(n_ins)
+        # homopolymer insertions duplicate the run base (the real
+        # over-call mode); elsewhere a random base
+        out[pos[at] + 1] = np.where(hp[at], frag[at], ins_vals)
         frag = out
     return frag[:read_len]
 

@@ -4,7 +4,7 @@ The reference delegates sketching to minimap2's C core via the ``mappy``
 index (`monica/genomes/aligner.py:45-46`, preset ``map-ont`` = k=15,
 w=10).  Here sketching is expressed as pure array ops so the same code
 runs vectorized on host (numpy, for the one-off index build) and inside
-``jit`` on TPU (jax.numpy, for per-batch read sketching).
+``jit`` on the accelerator (jax.numpy, for per-batch read sketching).
 
 Algorithm: 2-bit rolling k-mers on both strands, canonical = min(fwd,
 rc), murmur3-finalizer hash, then (w)-window minimum selection done in
@@ -97,7 +97,7 @@ def kmer_hashes(codes, k: int = K_DEFAULT, xp=np):
     Built by log-composition instead of a k-pass rolling loop: width-2^j
     block values double in log2(k) shifted-combine passes, then the
     binary decomposition of k stitches the final k-mer value — ~4x
-    fewer VPU passes at k=15 (same values bit-for-bit: the k-mer
+    fewer elementwise passes at k=15 (same values bit-for-bit: the k-mer
     integer, and hence fmix32, is position-order-defined).
     """
     n = codes.shape[-1]
@@ -217,7 +217,7 @@ def sketch_reads_jax(codes, n_slots: int, k: int = K_DEFAULT, w: int = W_DEFAULT
         # too: the selected (hash, pos) set is BIT-IDENTICAL to the
         # winnow-then-argmin path (tested) while skipping the ~8
         # shifted min/max passes of select_minimizers — the sketch
-        # stage is the largest single cost of the pipeline (PERF_r04).
+        # stage was the largest single cost of the pipeline.
         # (Only true tail segments shortened below w by read end/padding
         # can select a non-winnowed position; such a seed just misses
         # in the index — a sub-seed-level sensitivity effect.)

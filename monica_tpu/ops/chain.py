@@ -17,11 +17,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from monica_tpu.ops.lookup import INVALID_KEY
-from monica_tpu.ops.sortnet import bitonic_sort_rows
 
 
 class ChainResult(NamedTuple):
@@ -44,7 +42,7 @@ def _pair_votes(skeys, max_run: int):
     the stretch is exactly run(k) followed by run(k+1).
 
     Computed as a prefix-AND chain of shifted comparisons: pure
-    elementwise ops XLA fuses into a handful of VPU passes — no prefix
+    elementwise ops XLA fuses into a handful of passes — no prefix
     scans along the lane axis, no gathers.
     """
     B, A = skeys.shape
@@ -60,11 +58,16 @@ def _pair_votes(skeys, max_run: int):
     return merged
 
 
+def sort_keys(key):
+    """Row-wise ascending sort of the packed anchor keys (B, A)."""
+    return jnp.sort(key, axis=-1)
+
+
 def chain_votes(key, diag, read_pos, ref_pos, max_run: int = 64) -> ChainResult:
     """Vote over anchor keys; all inputs (B, A) from lookup_anchors.
 
     ``max_run`` caps the counted stretch (and the _pair_votes pass
-    count, the chain stage's main VPU cost).  The caller should pass
+    count, the chain stage's main elementwise cost).  The caller should pass
     ``min(128, n_slots)``: a locus can legitimately collect up to the
     read's valid-seed count in votes, and in the <=512 bp bucket
     n_slots stays 128 (pipeline.params_for_bucket) — a clean ~500 bp
@@ -73,17 +76,7 @@ def chain_votes(key, diag, read_pos, ref_pos, max_run: int = 64) -> ChainResult:
     wherever extension does not override it (no-extend runs,
     non-rescued reads, 'matching' count mode).  Buckets > 512 bp run
     n_slots=64, so the default 64 is exact for them."""
-    B, A = key.shape
-    # TPU: bitonic network (static lane permutations + min/max,
-    # ops/sortnet.py) instead of the generic comparator lax.sort.
-    # CPU: lax.sort — the per-stage lane permutations lower to real
-    # gathers there and the network is ~18x SLOWER (measured), while
-    # highly-optimized std sorting wins.  Backend is fixed per process,
-    # so trace-time selection is sound.
-    import jax as _jax
-
-    use_net = (A & (A - 1) == 0) and _jax.default_backend() != "cpu"
-    skeys = bitonic_sort_rows(key) if use_net else jnp.sort(key, axis=-1)
+    skeys = sort_keys(key)
     valid = skeys != INVALID_KEY
     merged = jnp.where(valid, _pair_votes(skeys, max_run), 0)
 

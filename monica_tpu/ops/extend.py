@@ -1,13 +1,14 @@
 """Banded Smith–Waterman extension (the minimap2 alignment-extension
-analog) — jnp reference implementation + Pallas TPU kernel.
+analog) — jnp reference implementation; the CUDA kernel in
+``banded_sw.cu`` (built and called by :mod:`monica_tpu.ops.sw_cuda`)
+computes the same integers on a GPU.
 
 The reference consumes mappy's per-hit ``NM``/``mlen`` (edit distance /
 matched bases, `monica/genomes/aligner.py:193-195`) produced by
 minimap2's banded extension in C.  Here extension is a first-party
-kernel re-designed for the TPU VPU:
+data-parallel DP:
 
-* the band (width ``W``, a multiple of 128) lives across the *lane*
-  axis, a tile of reads across the *sublane* axis;
+* the band (width ``W``) lies along the last axis, one read per row;
 * DP runs row-per-read-base in shifted-band coordinates, where the
   band window over the reference advances one base per row — the
   wavefront parallelism SURVEY.md §5 calls for, without anti-diagonal
@@ -16,8 +17,8 @@ kernel re-designed for the TPU VPU:
   EXACTLY for linear gap cost by a prefix-max scan:
       H[i][d] = max_{k<=d} (T[i][k] - (d-k)·G)
               = prefixmax_d(T[i][k] + k·G) - d·G
-  computed in log2(W) shifted-max passes — pure elementwise VPU ops,
-  no sequential lane chain;
+  computed in log2(reach) shifted-max passes — elementwise ops with no
+  sequential chain along the band;
 * matches along the optimal path are tracked as a paired value through
   every max, giving an ``mlen`` analog and, with the score, an ``NM``
   estimate:  S = MA·mlen - MM·mismatch - G·gaps  =>
@@ -29,7 +30,6 @@ gap 4 approximating open 4/extend 2).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
@@ -40,16 +40,16 @@ NEG = -(1 << 20)  # -inf for int32 DP without overflow
 
 
 class ExtendParams(NamedTuple):
-    band: int = 128  # band width (lanes); multiple of 128 on TPU
+    band: int = 128  # band width in cells (the CUDA kernel takes 32, 64, 128)
     match: int = 2
     mismatch: int = 4  # positive penalty
     gap: int = 4  # positive linear gap penalty
-    # horizontal (deletion) reach per DP row in lanes: prefix-max passes
+    # horizontal (deletion) reach per DP row in cells: prefix-max passes
     # = ceil(log2(max_gap)).  Deletions longer than this split the local
     # alignment instead of bridging it — at nanopore error profiles
     # (indels overwhelmingly 1-3 bp) the score loss is negligible, and
-    # each halving of passes removes ~5 VPU ops/row.  0 = exact (full
-    # band reach, log2(band) passes).
+    # each halving of the reach removes one pass per row.  0 = exact
+    # (full band reach, log2(band) passes).
     max_gap: int = 16
 
 
@@ -97,7 +97,7 @@ def extract_ref_windows(ref_codes: jnp.ndarray, diag: jnp.ndarray, L: int, band:
 
 
 # ---------------------------------------------------------------------------
-# shared row-update math (used by both the jnp and Pallas versions)
+# row-update math
 # ---------------------------------------------------------------------------
 
 def _gap_reach(width: int, max_gap: int) -> int:
@@ -198,7 +198,7 @@ def _row_update_packed(P, qcol, rrow, lane_gp, p: ExtendParams, mbits: int):
 
 
 # ---------------------------------------------------------------------------
-# jnp implementation (CPU tests / oracle / non-Pallas fallback)
+# jnp implementation (the reference for the CUDA kernel)
 # ---------------------------------------------------------------------------
 
 def banded_sw_jnp(q, refwin, lengths, p: ExtendParams):
@@ -249,339 +249,36 @@ def banded_sw_jnp(q, refwin, lengths, p: ExtendParams):
 
 
 # ---------------------------------------------------------------------------
-# Pallas TPU kernel
+# dispatch
 # ---------------------------------------------------------------------------
 
-ROWS = 128  # rows (read bases) per grid step; also the lane alignment unit
+def prefix_passes(p: ExtendParams) -> int:
+    """Number of horizontal prefix-max passes per row (ceil(log2(reach)))."""
+    return max(_gap_reach(p.band, p.max_gap) - 1, 0).bit_length()
 
 
-def _sw_kernel(q_ref, r_ref, len_ref, out_ref, h_ref, m_ref, best_ref,
-               p: ExtendParams, n_blocks: int):
-    """One grid step = ROWS DP rows for one read tile.
+def resolve_impl(impl: str, band: int) -> str:
+    """``"auto"`` -> the CUDA kernel on a GPU backend when it supports the
+    band, the jnp DP everywhere else."""
+    from monica_tpu.ops import sw_cuda
 
-    Mosaic only allows lane-dim loads at 128-multiples, so all VMEM
-    blocks arrive grid-aligned via BlockSpec; the per-row q column and
-    W-wide ref window are extracted from the loaded block with a
-    dynamic-shift ``pltpu.roll`` (tpu.dynamic_rotate) — the loop body
-    is traced once, keeping the MLIR small.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    BT, W = h_ref.shape
-    l = pl.program_id(1)
-
-    @pl.when(l == 0)
-    def _():
-        h_ref[...] = jnp.zeros((BT, W), jnp.int32)
-        m_ref[...] = jnp.zeros((BT, W), jnp.int32)
-        best_ref[...] = jnp.zeros((BT, 2), jnp.int32)
-
-    lane_g = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1) * p.gap
-    lengths = len_ref[...]  # (BT, 1)
-    # int32 up-front: tpu.dynamic_rotate has no i8 lowering
-    qblk = q_ref[...].astype(jnp.int32)  # (BT, ROWS)
-    rbuf = r_ref[...].astype(jnp.int32)  # (BT, W + ROWS)
-    row0 = l * ROWS
-
-    def body(j, _):
-        qcol = pltpu.roll(qblk, -j, 1)[:, :1]
-        rrow = pltpu.roll(rbuf, -j, 1)[:, :W]
-        h, m = _row_update(h_ref[...], m_ref[...], qcol, rrow, lane_g, p)
-        h_ref[...] = h
-        m_ref[...] = m
-        active = (row0 + j) < lengths  # (BT, 1)
-        rb = jnp.max(h, axis=-1, keepdims=True)
-        rm = jnp.max(jnp.where(h == rb, m, 0), axis=-1, keepdims=True)
-        better = active & (rb > best_ref[:, :1])
-        best_ref[...] = jnp.where(
-            better, jnp.concatenate([rb, rm], axis=1), best_ref[...]
-        )
-        return 0
-
-    jax.lax.fori_loop(0, ROWS, body, 0)
-
-    @pl.when(l == n_blocks - 1)
-    def _():
-        out_ref[...] = best_ref[...]
-
-
-def _sw_kernel_packed(q_ref, r_ref, len_ref, out_ref, p_ref, best_ref,
-                      p: ExtendParams, n_blocks: int, mbits: int):
-    """Packed-state variant of :func:`_sw_kernel`: one int32 DP array
-    instead of (h, m), ~2x fewer VPU ops per row (see
-    :func:`_row_update_packed`)."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    BT, W = p_ref.shape
-    l = pl.program_id(1)
-
-    @pl.when(l == 0)
-    def _():
-        p_ref[...] = jnp.zeros((BT, W), jnp.int32)
-        best_ref[...] = jnp.zeros((BT, W), jnp.int32)
-
-    lane_gp = jax.lax.broadcasted_iota(jnp.int32, (1, W), 1) * (p.gap << mbits)
-    qblk = q_ref[...].astype(jnp.int32)  # (BT, ROWS)
-    rbuf = r_ref[...].astype(jnp.int32)  # (BT, W + ROWS)
-
-    def body(j, _):
-        qcol = pltpu.roll(qblk, -j, 1)[:, :1]
-        rrow = pltpu.roll(rbuf, -j, 1)[:, :W]
-        P = _row_update_packed(p_ref[...], qcol, rrow, lane_gp, p, mbits)
-        p_ref[...] = P
-        # lazy best: per-LANE max accumulator (one VPU op per row); the
-        # global max over all (row, lane) cells is reduced once at the
-        # end — replacing the per-row W-lane max reduction, which was
-        # ~half the row cost.  Exact, including rows past each read's
-        # length: beyond the end every update subtracts a positive
-        # penalty (or floors at 0 <= max), so no cell can exceed the
-        # pre-end maximum, and PAD query bases never match.
-        best_ref[...] = jnp.maximum(best_ref[...], P)
-        return 0
-
-    jax.lax.fori_loop(0, ROWS, body, 0)
-
-    @pl.when(l == n_blocks - 1)
-    def _():
-        b = jnp.max(best_ref[...], axis=-1, keepdims=True)
-        out_ref[...] = jnp.concatenate(
-            [b >> mbits, b & ((1 << mbits) - 1)], axis=1
-        )
-
-
-def _tile_ref_windows(refwin, n_blocks: int, W: int):
-    """(B, L+W) -> (B, n_blocks*(W+ROWS)) overlapping row-block tiles,
-    flattened 2-D so each (BT, W+ROWS) kernel block is tile-aligned
-    (tile l covers DP rows l*ROWS .. l*ROWS+127)."""
-    return jnp.concatenate(
-        [refwin[:, i * ROWS : i * ROWS + W + ROWS] for i in range(n_blocks)], axis=1
-    )
-
-
-def banded_sw_pallas(q, refwin, lengths, p: ExtendParams, block_reads: int = 128,
-                     interpret: bool | None = None):
-    """Pallas banded SW: grid (read tiles, row blocks); q/ref stay uint8
-    in VMEM; DP state is int32 (BT, W) scratch persisted across the
-    sequential row-block grid dimension."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, L = q.shape
-    W = p.band
-    BT = min(block_reads, B)
-    padB = -(-B // BT) * BT
-    padL = -(-L // ROWS) * ROWS
-    if padB != B or padL != L:
-        q = jnp.pad(q, ((0, padB - B), (0, padL - L)), constant_values=4)
-        refwin = jnp.pad(
-            refwin, ((0, padB - B), (0, (padL + W) - refwin.shape[1])),
-            constant_values=4,
-        )
-        lengths = jnp.pad(lengths, (0, padB - B))
-    Bp, Lp = q.shape
-    NB = Lp // ROWS
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    rtiles = _tile_ref_windows(refwin, NB, W)
-    mbits = packed_mbits(L, p)
-    if mbits:
-        kernel = functools.partial(
-            _sw_kernel_packed, p=p, n_blocks=NB, mbits=mbits
-        )
-        scratch = [
-            pltpu.VMEM((BT, W), jnp.int32),
-            pltpu.VMEM((BT, W), jnp.int32),  # per-lane lazy best
-        ]
-    else:
-        kernel = functools.partial(_sw_kernel, p=p, n_blocks=NB)
-        scratch = [
-            pltpu.VMEM((BT, W), jnp.int32),
-            pltpu.VMEM((BT, W), jnp.int32),
-            pltpu.VMEM((BT, 2), jnp.int32),
-        ]
-    out = pl.pallas_call(
-        kernel,
-        grid=(Bp // BT, NB),
-        in_specs=[
-            pl.BlockSpec((BT, ROWS), lambda b, l: (b, l)),
-            pl.BlockSpec((BT, W + ROWS), lambda b, l: (b, l)),
-            pl.BlockSpec((BT, 1), lambda b, l: (b, 0)),
-        ],
-        out_specs=pl.BlockSpec((BT, 2), lambda b, l: (b, 0)),
-        out_shape=jax.ShapeDtypeStruct((Bp, 2), jnp.int32),
-        scratch_shapes=scratch,
-        cost_estimate=pl.CostEstimate(
-            flops=10 * Bp * Lp * W, bytes_accessed=Bp * (2 * Lp + W), transcendentals=0
-        ),
-        interpret=interpret,
-    )(q, rtiles, lengths.reshape(Bp, 1).astype(jnp.int32))
-    return out[:B, 0], out[:B, 1]
-
-
-def _row_update_packed_pairs(P, qcol, rrow, lane_gp, p: ExtendParams,
-                             mbits: int, reach: int):
-    """Packed row update on PARITY-INTERLEAVED state: lane 2d = read A
-    band-position d, lane 2d+1 = read B.  Band shifts become even lane
-    shifts, which preserve parity — the two reads can never leak into
-    each other, so no boundary masks are needed."""
-    one = jnp.int32(1)
-    scale = jnp.int32(1 << mbits)
-    is_match = (qcol == rrow) & (qcol < 4)
-    cand_d = P + jnp.where(is_match, p.match * scale + one, -p.mismatch * scale)
-    floor2 = jnp.full_like(P[..., :2], NEG)
-    cand_u = jnp.concatenate([P[..., 2:], floor2], axis=-1) - p.gap * scale
-    t = jnp.maximum(cand_u, cand_d)
-    t = jnp.maximum(t, 0)
-    u = t + lane_gp
-    s = 1
-    while s < reach:
-        pu = jnp.concatenate(
-            [jnp.full_like(u[..., : 2 * s], NEG), u[..., : -2 * s]], axis=-1
-        )
-        u = jnp.maximum(pu, u)
-        s *= 2
-    return jnp.maximum(u - lane_gp, t)
-
-
-def _sw_kernel_pairs(q_ref, r_ref, out_ref, p_ref, best_ref,
-                     p: ExtendParams, n_blocks: int, mbits: int, reach: int):
-    """Two reads per 128-lane row (band W <= 64): read pair (A, B)
-    interleaved by lane parity.  Same packed DP as _sw_kernel_packed
-    with even shifts and a lazy per-lane best."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    BT2, lanes = p_ref.shape  # lanes = 2 * W
-    l = pl.program_id(1)
-
-    @pl.when(l == 0)
-    def _():
-        p_ref[...] = jnp.zeros((BT2, lanes), jnp.int32)
-        best_ref[...] = jnp.zeros((BT2, lanes), jnp.int32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, lanes), 1)
-    even = (lane & 1) == 0
-    lane_gp = (lane >> 1) * (p.gap << mbits)
-    qblk = q_ref[...].astype(jnp.int32)  # (BT2, 2*ROWS) interleaved
-    rbuf = r_ref[...].astype(jnp.int32)  # (BT2, 2*(ROWS+W)) interleaved
-
-    # Roll the loaded blocks by a CONSTANT -2 per row, carrying them
-    # through the loop, instead of rolling the original block by a
-    # computed -2*j: tpu.dynamic_rotate with the multiplied loop index
-    # silently produces wrong data on real hardware (scores collapse
-    # to noise; interpret mode agrees with the jnp oracle either way).
-    def body(j, carry):
-        qb, rb = carry
-        qcol = jnp.where(even, qb[:, :1], qb[:, 1:2])
-        rrow = rb[:, :lanes]
-        P = _row_update_packed_pairs(
-            p_ref[...], qcol, rrow, lane_gp, p, mbits, reach
-        )
-        p_ref[...] = P
-        best_ref[...] = jnp.maximum(best_ref[...], P)
-        # static shifts must be non-negative: width-2 == -2 (mod width)
-        return (
-            pltpu.roll(qb, qb.shape[1] - 2, 1),
-            pltpu.roll(rb, rb.shape[1] - 2, 1),
-        )
-
-    jax.lax.fori_loop(0, ROWS, body, (qblk, rbuf))
-
-    @pl.when(l == n_blocks - 1)
-    def _():
-        b = best_ref[...]
-        neg = jnp.int32(NEG)
-        bA = jnp.max(jnp.where(even, b, neg), axis=-1, keepdims=True)
-        bB = jnp.max(jnp.where(even, neg, b), axis=-1, keepdims=True)
-        out_ref[...] = jnp.concatenate([bA, bB], axis=1)
-
-
-def _interleave_pairs(a, b):
-    """(B2, N), (B2, N) -> (B2, 2N) lane-interleaved [a0 b0 a1 b1 ...]."""
-    B2, N = a.shape
-    return jnp.stack([a, b], axis=-1).reshape(B2, 2 * N)
-
-
-def banded_sw_pairs(q, refwin, lengths, p: ExtendParams, block_pairs: int = 128,
-                    interpret: bool | None = None):
-    """Pallas banded SW at W <= 64 with TWO reads per 128-lane row —
-    half the band width at full lane utilization, so the cell cost per
-    read halves vs the W=128 kernel (the concordance gate holds at
-    band 64: 0.9678 worst-gated, same as 128)."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, L = q.shape
-    W = p.band
-    assert W <= 64, "pairs kernel packs two bands into 128 lanes"
-    mbits = packed_mbits(L, p)
-    assert mbits, "pairs kernel requires the packed DP (reads <= ~16 kb)"
-    BT2 = block_pairs
-    padB = -(-B // (2 * BT2)) * (2 * BT2)
-    padL = -(-L // ROWS) * ROWS
-    if padB != B or padL != L:
-        q = jnp.pad(q, ((0, padB - B), (0, padL - L)), constant_values=4)
-        refwin = jnp.pad(
-            refwin, ((0, padB - B), (0, (padL + W) - refwin.shape[1])),
-            constant_values=4,
-        )
-    Bp, Lp = q.shape
-    B2 = Bp // 2
-    NB = Lp // ROWS
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    q3 = q.reshape(B2, 2, Lp)
-    qi = _interleave_pairs(q3[:, 0], q3[:, 1])  # (B2, 2*Lp)
-    r3 = refwin.reshape(B2, 2, Lp + W)
-    tiles = [
-        _interleave_pairs(
-            r3[:, 0, i * ROWS : i * ROWS + ROWS + W],
-            r3[:, 1, i * ROWS : i * ROWS + ROWS + W],
-        )
-        for i in range(NB)
-    ]
-    rt = jnp.concatenate(tiles, axis=1)  # (B2, NB * 2*(ROWS+W))
-
-    reach = _gap_reach(W, p.max_gap)
-    kernel = functools.partial(
-        _sw_kernel_pairs, p=p, n_blocks=NB, mbits=mbits, reach=reach
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=(B2 // BT2, NB),
-        in_specs=[
-            pl.BlockSpec((BT2, 2 * ROWS), lambda b, l: (b, l)),
-            pl.BlockSpec((BT2, 2 * (ROWS + W)), lambda b, l: (b, l)),
-        ],
-        out_specs=pl.BlockSpec((BT2, 2), lambda b, l: (b, 0)),
-        out_shape=jax.ShapeDtypeStruct((B2, 2), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((BT2, 2 * W), jnp.int32),
-            pltpu.VMEM((BT2, 2 * W), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=10 * Bp * Lp * W, bytes_accessed=Bp * (2 * Lp + W),
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(qi, rt)
-    packed = out.reshape(Bp)[:B]
-    return packed >> mbits, packed & ((1 << mbits) - 1)
+    if impl == "auto":
+        return "cuda" if jax.default_backend() == "gpu" and sw_cuda.supports(band) else "jnp"
+    if impl not in ("cuda", "jnp"):
+        raise ValueError(f"unknown banded-SW implementation {impl!r}")
+    return impl
 
 
 def banded_sw(q, refwin, lengths, p: ExtendParams, impl: str = "auto"):
-    """Dispatch: Pallas on TPU (pairs kernel when the band fits two
-    reads per row), jnp elsewhere (same math)."""
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if impl == "pallas":
-        if p.band <= 64 and packed_mbits(q.shape[1], p):
-            return banded_sw_pairs(q, refwin, lengths, p)
-        return banded_sw_pallas(q, refwin, lengths, p)
+    """Dispatch between the CUDA kernel (ops/banded_sw.cu) and the jnp
+    DP; both compute the same integers (packed DP up to packed_mbits,
+    pair DP beyond)."""
+    if resolve_impl(impl, p.band) == "cuda":
+        from monica_tpu.ops import sw_cuda
+
+        return sw_cuda.banded_sw_cuda(
+            q, refwin, lengths, p, packed_mbits(q.shape[1], p), prefix_passes(p)
+        )
     return banded_sw_jnp(q, refwin, lengths, p)
 
 
@@ -602,8 +299,8 @@ def extend_hits(ref_codes, codes, lengths, rep_ref_pos, rep_read_pos, rc,
     anchor-count identity estimate into an alignment-based NM/mlen
     (`monica/genomes/aligner.py:195`'s hit.NM / hit.mlen analog).
 
-    The read is NEVER reoriented (a per-row variable reverse is an
-    expensive per-element gather on TPU); instead, for rc anchors the
+    The read is NEVER reoriented (a per-row variable reverse is a
+    per-element gather); instead, for rc anchors the
     reference window is gathered on the anti-diagonal and then flipped
     + complemented — whole-array layout/elementwise ops XLA handles
     cheaply.  Row i of the DP then always pairs read base i with

@@ -1,10 +1,10 @@
 """Seed lookup: read minimizers -> reference anchors.
 
 The mappy ``index.map(seq)`` seed-finding stage
-(`monica/genomes/aligner.py:193`) re-designed around one measured fact:
-on TPU, random HBM access is DESCRIPTOR-bound, not byte-bound (~150M
-descriptors/s but each can fetch a whole aligned row), so the winning
-structure is the one with the fewest gather descriptors per seed.
+(`monica/genomes/aligner.py:193`) re-designed around random device
+memory access: the structure should need the fewest dependent gathers
+per seed, each fetching one aligned row.  Whether the gather is bound
+by accesses or by bytes on the H100 is not measured yet.
 
 Design: a direct-addressed bucketed hash table.
 
@@ -21,8 +21,8 @@ Design: a direct-addressed bucketed hash table.
   (io.encode.PackedSeqsBuilder), so payload 0 (position 0) is
   unreachable for real entries.
 
-Cost per seed: exactly ONE gather descriptor (vs 18 for the original
-two-binary-search design; measured 3x faster end-to-end lookups).
+Cost per seed: exactly ONE row gather (vs 18 dependent gathers for a
+two-binary-search design).
 
 Anchor = (key, diag, read_pos, ref_pos) where ``key`` packs
 (orientation, quantized diagonal) into an int32 for sort-based chain
@@ -31,7 +31,6 @@ voting in :mod:`monica_tpu.ops.chain`.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -40,8 +39,7 @@ from monica_tpu.index.minimizer import INVALID_HASH
 # diagonal quantization: anchors of one gapless-ish chain share a bin.
 DIAG_SHIFT = 8  # 256-base bins
 # NB: a plain numpy scalar, NOT jnp — a module-level jnp array is a
-# committed device constant that defeats XLA constant folding (measured
-# 2000x slower lookups and minutes of extra compile time on TPU).
+# committed device constant that defeats XLA constant folding.
 INVALID_KEY = np.int32(1 << 30)
 
 ROW_SLOTS = 8  # entries per hash-table row (one 32-byte gather)
@@ -104,6 +102,21 @@ def build_hash_rows(
     return table
 
 
+def compact_rows(rows, keep: int):
+    """The ``keep`` largest entries of each row, descending — equal to
+    ``jnp.sort(rows)[..., ::-1][..., :keep]`` for unsigned entries, as
+    ``keep`` max-and-remove passes over the minor axis, which XLA fuses
+    into the gather that produced the rows instead of running a sort."""
+    slot = jnp.arange(rows.shape[-1])
+    out = []
+    for _ in range(keep):
+        m = jnp.max(rows, axis=-1, keepdims=True)
+        out.append(m)
+        first = jnp.argmax(rows == m, axis=-1, keepdims=True)
+        rows = jnp.where(slot == first, jnp.zeros_like(rows), rows)
+    return jnp.concatenate(out, axis=-1)
+
+
 def lookup_anchors(
     mz_rows,  # (R, ROW_SLOTS) uint32 direct-addressed packed table
     q_hash,  # (B, S) uint32 read minimizer hashes
@@ -141,25 +154,10 @@ def lookup_anchors(
     hit_ok = seed_ok[..., None] & ((e >> payload_bits) == qtag) & (ps != 0)
 
     if anchors_per_seed and anchors_per_seed < ROW_SLOTS:
-        # verified-hits-first compaction: zero out non-hits, sort the
-        # row descending (valid entries are nonzero, invalid exactly 0),
-        # keep the first A slots — then every derived array below is
-        # A/ROW_SLOTS the size.  The sort is a group-wise bitonic
-        # network over the flattened (S*ROW_SLOTS) axis: lax.sort on an
-        # 8-wide minor axis wastes the 128-lane VPU, the network is six
-        # static lane permutations at full width.
-        from monica_tpu.ops.sortnet import bitonic_sort_rows
-
-        masked = jnp.where(hit_ok, e, jnp.uint32(0))
-        if jax.default_backend() == "cpu":
-            # CPU: the network's lane permutations lower to real
-            # gathers and lose to std sort (same trade as ops/chain.py)
-            masked = jnp.flip(jnp.sort(masked, axis=-1), axis=-1)
-        else:
-            masked = bitonic_sort_rows(
-                masked.reshape(B, S * ROW_SLOTS), group=ROW_SLOTS, descending=True
-            ).reshape(B, S, ROW_SLOTS)
-        e = masked[..., :anchors_per_seed]
+        # verified-hits-first compaction: zero out non-hits and keep the
+        # A largest entries (valid entries are nonzero, invalid exactly
+        # 0) — then every derived array below is A/ROW_SLOTS the size.
+        e = compact_rows(jnp.where(hit_ok, e, jnp.uint32(0)), anchors_per_seed)
         ps = (e & jnp.uint32((1 << payload_bits) - 1)).astype(jnp.int32)
         hit_ok = e != 0
 

@@ -35,12 +35,12 @@ from monica_tpu.parallel.mesh import DATA_AXIS, INDEX_AXIS
 
 def multihost_init(**kwargs) -> None:
     """Multi-host process-group bootstrap (jax.distributed). The
-    reference has no distributed runtime at all (SURVEY.md §5); on TPU
-    pods this is one call and the mesh spans all hosts' devices.
-    With no arguments jax auto-detects the coordinator/process count
-    from the cluster environment (TPU metadata, or the
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    variables the CLI forwards — see cli.py `--multihost`)."""
+    reference has no distributed runtime at all (SURVEY.md §5); here
+    this is one call and the mesh spans all hosts' devices.  Pass
+    ``coordinator_address`` (host:port of process 0),
+    ``num_processes`` and ``process_id`` (cli.py ``--coordinator``,
+    ``--num_processes``, ``--process_id``); without them jax reads a
+    cluster environment it can detect, or fails."""
     jax.distributed.initialize(**kwargs)
 
 

@@ -2,8 +2,9 @@
 
 The reference's parallelism is a thread pool over sample files plus
 sequential alignment against every index chunk
-(`monica/genomes/aligner.py:89-103`).  The TPU-native design is a 2-D
-mesh:
+(`monica/genomes/aligner.py:89-103`).  Here it is a 2-D mesh whose
+shape follows the algorithm (every GPU of a host reaches every other
+over NVLink at the same rate):
 
 * ``data``  axis — read batches sharded across chips (the ThreadPool
   analog, but SPMD);

@@ -29,7 +29,7 @@ path (``build_index_from_arrays`` -> ``runtime.Classifier`` ->
 two are diffed: per-read route, mapped-read id rewrite, count tables
 per mode, normalized CSV.  ``tests/test_parity_reference_exec.py``
 gates >=95% per-read route agreement; ``scripts/parity_artifact.py``
-records PARITY_r05.json.
+writes the same comparison as a JSON artifact.
 """
 
 from __future__ import annotations
@@ -723,9 +723,9 @@ def diff_tables(ref_df, our_df, rtol: float = 1e-9) -> dict:
 
     Index NAMES are ignored: the reference emits unnamed levels
     (`aligner.py:322-323`), this repo names them (tax_unit, accession)
-    — a documented, read_csv(index_col=(0,1))-compatible difference."""
-    ref = ref_df.copy()
-    our = our_df.copy()
+    — a documented, read_csv(index_col=(0,1))-compatible difference.
+    Either side may be a :class:`monica_tpu.stats.abundance.AbundanceTable`."""
+    ref, our = (t.to_pandas() if hasattr(t, "to_pandas") else t.copy() for t in (ref_df, our_df))
     ref.index = ref.index.set_names([None, None])
     our.index = our.index.set_names([None, None])
     ref = ref.sort_index()

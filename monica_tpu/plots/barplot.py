@@ -11,6 +11,10 @@ Re-designs `monica/plots/barplot.py` (reference):
 Design: categorical palette = the 8 validated slots (fixed order);
 taxa beyond 8 fold into a gray "Other" so identity stays CVD-readable.
 Full per-taxon data remains in the CSVs and the HTML's table view.
+
+Tables are numpy (:class:`monica_tpu.stats.abundance.AbundanceTable`);
+sums and the taxon ranking follow pandas' groupby/sort rules, so the
+HTML is the one the former pandas implementation wrote.
 """
 
 from __future__ import annotations
@@ -18,10 +22,10 @@ from __future__ import annotations
 import html as _html
 import json
 import os
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 BARPLOT_FILENAME = "monica.barplot.html"
 READS_THRESHOLD = 15  # reference default (barplot.py:9)
@@ -52,21 +56,56 @@ def palette_colors(palette: str, n: int) -> tuple[list[str], list[str]] | None:
     return cols, cols
 
 
-def by_taxunit(df: pd.DataFrame) -> pd.DataFrame:
-    """Sum accession rows into tax-unit rows (`barplot.py:19-27`)."""
-    return df.fillna(0).groupby(level=0, sort=False).sum()
+@dataclass
+class TaxonTable:
+    """Per-tax-unit rows x sample columns (NaN-free)."""
+
+    taxa: list[str]
+    samples: list[str]
+    values: np.ndarray  # (taxa, samples) float64
 
 
-def filter_low_reads(norm: pd.DataFrame, raw: pd.DataFrame, threshold: float) -> pd.DataFrame:
+def by_taxunit(table) -> TaxonTable:
+    """Sum accession rows into tax-unit rows in first-appearance order,
+    NaN as 0 (`barplot.py:19-27`).  Compensated (Kahan) summation in row
+    order, as pandas' groupby sum does."""
+    taxa: list[str] = []
+    slot: dict[str, int] = {}
+    for t in table.tax_units:
+        if t not in slot:
+            slot[t] = len(taxa)
+            taxa.append(t)
+    vals = np.nan_to_num(np.asarray(table.values, np.float64), nan=0.0)
+    sums = np.zeros((len(taxa), len(table.samples)), np.float64)
+    comp = np.zeros_like(sums)
+    for t, row in zip(table.tax_units, vals):
+        g = slot[t]
+        y = row - comp[g]
+        tot = sums[g] + y
+        comp[g] = np.where(np.isnan(tot - sums[g] - y), 0.0, tot - sums[g] - y)
+        sums[g] = tot
+    return TaxonTable(taxa, list(table.samples), sums)
+
+
+def filter_low_reads(norm: TaxonTable, raw: TaxonTable, threshold: float) -> TaxonTable:
     """Drop taxa whose *raw* counts are <= threshold in every sample
     (`barplot.py:30-40`)."""
-    keep = (raw > float(threshold)).any(axis=1)
-    return norm.loc[keep[keep].index.intersection(norm.index)]
+    keep = (raw.values > float(threshold)).any(axis=1)
+    where = {t: i for i, t in enumerate(norm.taxa)}
+    rows = [where[t] for t, k in zip(raw.taxa, keep) if k and t in where]
+    return TaxonTable([norm.taxa[i] for i in rows], norm.samples, norm.values[rows])
+
+
+def _rank_descending(v: np.ndarray) -> np.ndarray:
+    """Row order by descending value with pandas' ``sort_values``
+    tie order (reversed quicksort argsort)."""
+    idx = np.arange(len(v))[::-1]
+    return idx[v[::-1].argsort(kind="quicksort")][::-1]
 
 
 def plotter(
-    norm_alignment_df: pd.DataFrame,
-    raw_alignment_df: pd.DataFrame,
+    norm_alignment_df,
+    raw_alignment_df,
     output_folder: str | os.PathLike,
     palette: str = "default",  # matplotlib cmap name, or the validated default
     reads_threshold: float = READS_THRESHOLD,
@@ -82,7 +121,7 @@ def plotter(
     raw_t = by_taxunit(raw_alignment_df)
     norm_t = filter_low_reads(norm_t, raw_t, reads_threshold)
 
-    samples = list(norm_t.columns)
+    samples = list(norm_t.samples)
     hosts = hosts or []
     guests = guests or []
     if hosts and guests:
@@ -95,30 +134,33 @@ def plotter(
         title = f"Analysis mode: {mode}"
 
     # rank taxa by max abundance; first 8 get palette slots, rest fold
-    order = norm_t.max(axis=1).sort_values(ascending=False).index.tolist()
+    ranked = _rank_descending(
+        norm_t.values.max(axis=1) if len(samples) else np.zeros(len(norm_t.taxa))
+    )
+    order = [norm_t.taxa[i] for i in ranked]
     custom = palette_colors(palette, min(len(order), 8))
     light, dark = custom if custom else (_SERIES_LIGHT, _SERIES_DARK)
-    top = order[:8]
-    rest = order[8:]
     series = []
-    for i, taxon in enumerate(top):
+    for i, r in enumerate(ranked[:8]):
+        taxon = norm_t.taxa[r]
         name = f"{taxon}_(host)" if taxon in hosts else str(taxon)
         series.append(
             {
                 "name": name,
                 "taxon": str(taxon),
-                "values": [float(norm_t.loc[taxon, s]) for s in samples],
+                "values": [float(v) for v in norm_t.values[r]],
                 "cl": light[i],
                 "cd": dark[i],
             }
         )
-    if rest:
-        other = norm_t.loc[rest].sum(axis=0)
+    rest = ranked[8:]
+    if len(rest):
+        other = norm_t.values[rest].T.sum(axis=1)
         series.append(
             {
                 "name": f"Other ({len(rest)} taxa)",
                 "taxon": "Other",
-                "values": [float(other[s]) for s in samples],
+                "values": [float(v) for v in other],
                 "cl": _OTHER_LIGHT,
                 "cd": _OTHER_DARK,
             }
@@ -126,7 +168,7 @@ def plotter(
 
     # full table rows (all taxa, unfolded) for the table view
     table_rows = [
-        [str(t)] + [float(norm_t.loc[t, s]) for s in samples] for t in order
+        [str(norm_t.taxa[r])] + [float(v) for v in norm_t.values[r]] for r in ranked
     ]
 
     html_text = _render_html(title, samples, series, table_rows, show_legend)

@@ -9,18 +9,19 @@ normalizer with flat per-accession vectors (device-friendly):
   BPB = count / genome_length[accession];  BPM = BPB / sample_total;
 * MultiIndex (tax_unit, accession) x samples CSV schema  <-
   `alignment_to_data_frame` (`aligner.py:322-325`), public API used by
-  ``plot_only`` (`monica/monica.py:784-785`).
+  ``plot_only`` (`monica/monica.py:784-785`).  The table is a small
+  numpy structure written with :mod:`csv` byte for byte as pandas'
+  ``DataFrame.to_csv`` writes that MultiIndex frame.
 """
 
 from __future__ import annotations
 
-import json
+import csv
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from monica_tpu.index.build import IndexMeta
 
@@ -91,10 +92,56 @@ def normalize(state: AbundanceState, genome_lengths: np.ndarray) -> dict[str, np
     return out
 
 
-def to_dataframe(
+@dataclass
+class AbundanceTable:
+    """Rows = (tax_unit, accession) pairs; columns = samples; NaN marks
+    an absent pair — the reference's MultiIndex DataFrame
+    (`aligner.py:322-325`) without pandas."""
+
+    tax_units: list[str]
+    accessions: list[str]
+    samples: list[str]
+    values: np.ndarray  # (rows, samples) float64
+
+    INDEX_NAMES = ("tax_unit", "accession")
+
+    def to_csv(self, path: str | os.PathLike) -> None:
+        """pandas ``to_csv`` layout: header row of index names + samples,
+        shortest round-trip floats, empty field for NaN, minimal quoting."""
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh, lineterminator="\n")
+            w.writerow([*self.INDEX_NAMES, *self.samples])
+            for t, a, row in zip(self.tax_units, self.accessions, self.values):
+                w.writerow([t, a, *("" if np.isnan(v) else repr(float(v)) for v in row)])
+
+    @classmethod
+    def read_csv(cls, path: str | os.PathLike) -> "AbundanceTable":
+        with open(path, newline="") as fh:
+            rows = list(csv.reader(fh))
+        samples = rows[0][2:]
+        body = rows[1:]
+        values = np.array(
+            [[float(v) if v else np.nan for v in r[2:]] for r in body], np.float64
+        ).reshape(len(body), len(samples))
+        return cls([r[0] for r in body], [r[1] for r in body], samples, values)
+
+    def to_pandas(self):
+        """The same table as a pandas DataFrame (parity tooling only)."""
+        import pandas as pd
+
+        index = pd.MultiIndex.from_arrays(
+            [self.tax_units, self.accessions], names=list(self.INDEX_NAMES)
+        )
+        return pd.DataFrame(
+            {s: self.values[:, j] for j, s in enumerate(self.samples)}, index=index
+        )
+
+
+def to_table(
     per_sample: dict[str, np.ndarray], meta: IndexMeta, overnight: bool = False
-) -> pd.DataFrame:
-    """Rows = MultiIndex (tax_unit, accession); columns = samples.
+) -> AbundanceTable:
+    """Rows = (tax_unit, accession) with any nonzero sample; columns =
+    samples, sorted.
 
     Zero entries become NaN — in the reference a (tax_unit, accession)
     appears in a sample's Counter only if it received >=1 read, and
@@ -120,18 +167,13 @@ def to_dataframe(
         t = meta.tax_units[i]
         return t.split("_")[0] if overnight else t
 
-    index = pd.MultiIndex.from_arrays(
-        [
-            [tax(i) for i in idx],
-            [meta.accessions[i] for i in idx],
-        ],
-        names=["tax_unit", "accession"],
-    )
-    data = {}
-    for s in samples:
+    values = np.zeros((len(idx), len(samples)), np.float64)
+    for j, s in enumerate(samples):
         col = per_sample[s][idx].astype(np.float64)
-        data[s] = np.where(col != 0, col, np.nan)
-    return pd.DataFrame(data, index=index)
+        values[:, j] = np.where(col != 0, col, np.nan)
+    return AbundanceTable(
+        [tax(int(i)) for i in idx], [meta.accessions[i] for i in idx], samples, values
+    )
 
 
 def export_tables(
@@ -139,22 +181,22 @@ def export_tables(
     meta: IndexMeta,
     output_folder: str | os.PathLike,
     overnight: bool = False,
-) -> tuple[pd.DataFrame, pd.DataFrame]:
+) -> tuple[AbundanceTable, AbundanceTable]:
     """Write ``monica.dataframe`` (normalized) and ``raw_monica.dataframe``
     (raw counts) CSVs — the on-disk public API (`monica/monica.py:443-448`).
-    ``overnight`` exports genus-collapsed tax units (see to_dataframe)."""
+    ``overnight`` exports genus-collapsed tax units (see to_table)."""
     output_folder = Path(output_folder)
     output_folder.mkdir(parents=True, exist_ok=True)
-    raw = to_dataframe(
+    raw = to_table(
         {s: c.astype(np.float64) for s, c in state.samples.items()}, meta,
         overnight=overnight,
     )
-    norm = to_dataframe(normalize(state, meta.genome_lengths), meta, overnight=overnight)
+    norm = to_table(normalize(state, meta.genome_lengths), meta, overnight=overnight)
     norm.to_csv(output_folder / DATAFRAME_FILENAME)
     raw.to_csv(output_folder / RAW_DATAFRAME_FILENAME)
     return norm, raw
 
 
-def read_dataframe(path: str | os.PathLike) -> pd.DataFrame:
+def read_dataframe(path: str | os.PathLike) -> AbundanceTable:
     """Read a monica dataframe CSV back (plot_only path, monica.py:784-785)."""
-    return pd.read_csv(path, index_col=(0, 1))
+    return AbundanceTable.read_csv(path)

@@ -5,7 +5,7 @@ printed per stage (`monica/genomes/fetcher.py:140,251,294`,
 `test/test.py:23-46`).  Here stages report through one registry that
 prints the same style of line but also keeps machine-readable totals
 (reads/s, bases/s, Mcells/s), and can wrap a run in a jax profiler
-trace for TPU timeline inspection.
+trace for device timeline inspection.
 """
 
 from __future__ import annotations

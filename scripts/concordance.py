@@ -76,8 +76,8 @@ def main():
             ("slots96", pl.ClassifyParams(n_slots=96), 1.0),
             ("slots64_a2", pl.ClassifyParams(n_slots=64, anchors_per_seed=2), 1.0),
             ("slots96_a2", pl.ClassifyParams(n_slots=96, anchors_per_seed=2), 1.0),
-            # throughput knob (PERF_r03 "throughput_knob"): +12% reads/s,
-            # watch the precision column — a1 trades it
+            # throughput knob: fewer anchors per seed; watch the
+            # precision column — a1 trades it
             ("a1", pl.ClassifyParams(anchors_per_seed=1), 1.0),
             ("slots64_a1", pl.ClassifyParams(n_slots=64, anchors_per_seed=1), 1.0),
             ("frac0.5", pl.ClassifyParams(), 0.5),

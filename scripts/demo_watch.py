@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""BASELINE config-4 demo ON HARDWARE: real-time rolling batches.
+"""BASELINE config-4 demo on the GPU: real-time rolling batches.
 
 Simulates a MinION run: a feeder thread drops flowcell FASTQ batches
 into the query folder every few seconds while `watch()` classifies
@@ -8,14 +8,17 @@ the dataframe + barplot after every batch (the `on_batch` hook — the
 reference relies on an external watcher re-invoking the CLI,
 SURVEY §3.4; here the loop is first-class).
 
-Writes a JSON artifact recording per-batch latency and the
-incremental accumulator growth.
+Writes a JSON artifact recording per-batch latency (host clock, with
+the card's name and power limit) and the incremental accumulator
+growth.  Refuses to run without a GPU.
 
-Usage: python scripts/demo_watch.py [--out WATCH_r03.json]
+Usage: python scripts/demo_watch.py [--out FILE]
 """
 
 import json
+import shutil
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -25,8 +28,10 @@ sys.path.insert(0, "scripts")
 
 import numpy as np
 
+from monica_tpu.utils.device import card_line, require_gpu
 from monica_tpu.utils.jaxcache import enable_compilation_cache
 
+require_gpu(what="demo_watch.py")
 enable_compilation_cache()
 import jax
 
@@ -51,16 +56,15 @@ def main():
     seqs = zymo_community(rng)
     built = build_index_from_arrays(seqs, n_shards=1)
     clf = rt.Classifier(built, pl.ClassifyParams(), count_mode="query_length")
+    jax.block_until_ready(clf.index)
     build_s = time.time() - t0
 
     bench_mod.READ_LEN = 1000
-    qdir = Path("/tmp/demo_watch_query")
-    out = Path("/tmp/demo_watch_out")
+    scratch = Path(tempfile.mkdtemp(prefix="demo_watch_"))
+    qdir = scratch / "query"
+    out = scratch / "out"
     for d in (qdir, out):
-        d.mkdir(exist_ok=True)
-    for f in list(qdir.glob("*.fastq")) + list(out.glob("*")):
-        f.unlink()
-    ab.AbundanceState.clear(out)
+        d.mkdir()
 
     # warm the compile cache so batch latencies are steady-state
     write_fastq(qdir / "warm.fastq", make_reads(seqs, rng, 4096))
@@ -105,6 +109,7 @@ def main():
     payload = {
         "metric": "watch_mode_rolling_batches",
         "device": str(jax.devices()[0].device_kind),
+        "card": card_line(),
         "batches_fed": N_BATCHES,
         "reads_per_batch": READS,
         "reads_processed": n_reads,
@@ -121,6 +126,7 @@ def main():
         and all(a < b for a, b in zip(growth, growth[1:]))
         else "FAIL",
     }
+    shutil.rmtree(scratch, ignore_errors=True)
     print(json.dumps(payload))
     if out_path:
         with open(out_path, "w") as fh:

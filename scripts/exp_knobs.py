@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""(n_slots, frac, extend) grid timing of the classify
-step on the real device — honest methodology: one lax.scan dispatch
-over R DISTINCT resident batches (loop-invariant bodies can be hoisted
-by XLA, which silently divides the apparent time by R).
+"""(n_slots, frac, extend) grid timing of the classify step on the
+GPU (refuses to run without one): one lax.scan dispatch over R DISTINCT
+resident batches (loop-invariant bodies can be hoisted by XLA, which
+silently divides the apparent time by R), ended in block_until_ready,
+with the card's name and power limit beside every number.
 
 Accuracy for any candidate default must separately pass
 scripts/concordance.py at full size."""
@@ -22,6 +23,10 @@ BATCH = 2048
 
 
 def main():
+    from monica_tpu.utils.device import card_line, require_gpu
+
+    require_gpu(what="exp_knobs.py")
+    card = card_line()
     import jax
     import jax.numpy as jnp
 
@@ -54,11 +59,11 @@ def main():
             tot, _ = jax.lax.scan(body, jnp.float32(0), (cd, ld))
             return tot
 
-        np.asarray(fn())
-        t0 = time.time()
-        np.asarray(fn())
-        ms = (time.time() - t0) / R * 1000.0
-        print(f"{name:34s}: {ms:7.2f} ms/batch  ({BATCH/ms*1000:,.0f} reads/s)", flush=True)
+        jax.block_until_ready(fn())
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        ms = (time.perf_counter() - t0) / R * 1000.0
+        print(f"{name:34s}: {ms:7.2f} ms/batch  ({BATCH/ms*1000:,.0f} reads/s) | {card}", flush=True)
 
     for frac in (1.0, 0.5):
         built = build_index_from_arrays(seqs, frac=frac)

@@ -8,6 +8,9 @@ two ways and records each subprocess's peak RSS (resource.ru_maxrss):
 * whole-file (io.native.parse_fastq_file)   -> RSS ~ O(file)
 * chunked (io.native.iter_fastq_file_views) -> RSS ~ O(chunk)
 
+The parse subprocesses stay on the host: they never import JAX (the
+worker asserts it), so no second process opens the card.
+
 Usage: python scripts/ingest_rss.py [--mb 256] [--chunk_mb 32] [--out FILE]
 """
 
@@ -34,6 +37,7 @@ elif mode == "whole":
 else:
     for v in native.iter_fastq_file_views(path, chunk_bytes=chunk):
         n += len(v)
+assert "jax" not in sys.modules, "the ingest worker must stay off JAX"
 peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
 print(n, peak_kb)
 """
@@ -43,7 +47,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--mb", type=int, default=256)
     ap.add_argument("--chunk_mb", type=int, default=32)
-    ap.add_argument("--out", default="INGEST_RSS_r05.json")
+    ap.add_argument("--out", help="also write the JSON here")
     args = ap.parse_args()
 
     import numpy as np
@@ -95,8 +99,9 @@ def main():
         ),
     )
     print(json.dumps(payload))
-    with open(args.out, "w") as fh:
-        json.dump(payload, fh, indent=1)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(payload, fh, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""SENSITIVITY_r05.json — high-error-rate (R9-era) sensitivity closure
+"""High-error-rate (R9-era) sensitivity closure
 (VERDICT r4 missing #2 / next-round item 2).
 
 Measures, per error profile and read length:
@@ -13,7 +13,7 @@ Measures, per error profile and read length:
 Targets (gated here and in scripts/concordance.py): r9_old (8/5/5%)
 accuracy >= 0.85 at 1 kb with precision >= 0.995.
 
-Usage: python scripts/sensitivity_r9.py [--quick] [--out SENSITIVITY_r05.json]
+Usage: python scripts/sensitivity_r9.py [--quick] [--out FILE]
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def measure_saturation(built, seqs, params, error, read_len, n_reads, batch):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
-    ap.add_argument("--out", default="SENSITIVITY_r05.json")
+    ap.add_argument("--out", default="sensitivity_r9.json")
     ap.add_argument("--n_genomes", type=int, default=8)
     ap.add_argument("--glen", type=int, default=500_000)
     ap.add_argument("--n_reads", type=int, default=1024)
@@ -169,8 +169,7 @@ def main() -> None:
             "B/2 -> B by candidate count), single-anchor candidacy "
             "(rescue_min_votes=1), and a local-alignment coverage floor "
             "(rescue_min_cov=0.5).  r4 baseline (static B/8 budget, "
-            "mv=2): r9_old accuracy 0.32/0.49/0.53 at 300/1000/5000 bp "
-            "(CONCORDANCE_r04.json)."
+            "mv=2): r9_old accuracy 0.32/0.49/0.53 at 300/1000/5000 bp."
         ),
         gate=dict(profile="r9_old", read_len=">=1000",
                   acc=0.85, precision=0.995, passed=gate),

@@ -4,7 +4,6 @@ genome fetch/cache/eviction — all hermetic (fixture transport)."""
 import gzip
 import time
 
-import pandas as pd
 import pytest
 
 from monica_tpu.data import fetcher as fx
@@ -128,8 +127,9 @@ def test_taxonomy_lifecycle_refresh_and_fallback(taxonomy, tmp_path):
 def test_tables_importer_and_ttl(tables_dir):
     tdir, dl = tables_dir
     df = tb.importer(tdir, "refseq", dl)
-    assert list(df.columns) == tb.COLUMNS
+    assert all(list(r) == tb.COLUMNS for r in df)
     assert len(df) == 4
+    assert df[2]["infraspecific_name"] == "na" and df[0]["taxid"] == "111"
     # cached: poisoned downloader must NOT be called while fresh
     def boom(url, out):
         raise AssertionError("fetched despite fresh cache")
@@ -142,10 +142,10 @@ def test_tables_importer_and_ttl(tables_dir):
 def test_selector_single_dedups_species_and_splits_viruses(taxonomy, tables_dir):
     tdir, dl = tables_dir
     sel = fx.ftp_selector("single", ["Escherichia coli", "Coolvirus X"], taxonomy, tdir, dl)
-    names = set(sel["species_name"])
+    names = {r["species_name"] for r in sel}
     # two E. coli strains collapse to one species-level entry; virus kept
     assert names == {"Escherichia_coli", "Coolvirus_X"}
-    assert all(u.endswith("_genomic.fna.gz") for u in sel["ftp_path"])
+    assert all(r["ftp_path"].endswith("_genomic.fna.gz") for r in sel)
 
 
 def test_selector_all_keeps_everything(taxonomy, tables_dir):
@@ -158,7 +158,7 @@ def test_selector_focus_strain_names(taxonomy, tables_dir):
     tdir, dl = tables_dir
     sel = fx.ftp_selector("focus", ["Escherichia coli"], taxonomy, tdir, dl)
     assert len(sel) == 2
-    assert set(sel["species_name"]) == {
+    assert {r["species_name"] for r in sel} == {
         "Escherichia_coli_K12", "Escherichia_coli_O157"
     }
 
@@ -200,8 +200,10 @@ def test_fetcher_cache_reuse_and_version_eviction(taxonomy, tables_dir, tmp_path
     assert {g[0] for g in genomes2} == {g[0] for g in genomes}
 
     # version bump: new version downloaded, old evicted
-    sel3 = sel.copy()
-    sel3.loc[sel3["# assembly_accession"] == "GCF_000000003.1", "# assembly_accession"] = "GCF_000000003.2"
+    sel3 = [dict(r) for r in sel]
+    for r in sel3:
+        if r["# assembly_accession"] == "GCF_000000003.1":
+            r["# assembly_accession"] = "GCF_000000003.2"
     genomes3, updated3 = fx.fetcher(sel3, gdir, downloader=gdl)
     assert updated3
     names = {p.rsplit("/", 1)[-1] for p, _ in genomes3}
@@ -240,3 +242,34 @@ def test_focus_fetcher_species_level_cache_names(taxonomy, tables_dir, tmp_path)
     assert {h[0] for _, h in genomes} == {
         "Escherichia_coli_K12", "Escherichia_coli_O157"
     }
+
+
+def test_selection_rows_follow_pandas_merge_and_dedup(tmp_path):
+    """The row-dict selection reproduces the former pandas steps:
+    read_csv(dtype=str) NA cells, inner merge in left order with right
+    duplicates, and drop_duplicates(keep="last")."""
+    pd = pytest.importorskip("pandas")
+    rows = [
+        {"# assembly_accession": f"GCF_{i:09d}.1", "taxid": str(t), "species_taxid": str(t),
+         "organism_name": org, "infraspecific_name": strain, "ftp_path": f"https://x/{i}"}
+        for i, (t, org, strain) in enumerate([
+            (5, "Alpha beta", "strain=A"), (6, "Alpha beta", ""), (5, "Gamma sp. Z1", "NA"),
+            (7, "Delta eps", "na"), (6, "Alpha beta", "strain=B"),
+        ])
+    ]
+    path = tmp_path / "s.tsv"
+    tb.write_fixture_summary(path, rows)
+    dl = tb.fixture_downloader({tb.REFSEQ_SUMMARY_URL: str(path)})
+    got = tb.importer(tmp_path / "t", "refseq", dl)
+    want = pd.read_csv(path, header=tb.HEADER_LINE, dtype="str", sep="\t", usecols=tb.USE_COLS)
+    want.columns = tb.COLUMNS
+    assert [[None if pd.isna(v) else v for v in r] for r in want.itertuples(index=False)] == [
+        [r[c] for c in tb.COLUMNS] for r in got
+    ]
+    keys = {"taxid": ["6", "5", "6"]}
+    merged = fx._merge(got, keys)
+    want_m = want.merge(pd.DataFrame(keys), on="taxid")
+    assert [r["# assembly_accession"] for r in merged] == list(want_m["# assembly_accession"])
+    dedup = fx._dedup_keep_last(merged, "organism_name")
+    want_d = want_m.drop_duplicates(subset=["organism_name"], keep="last")
+    assert [r["# assembly_accession"] for r in dedup] == list(want_d["# assembly_accession"])

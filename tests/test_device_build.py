@@ -4,7 +4,7 @@
 (chunked numpy sketch + stable argsort): same selected minimizer set,
 same (hash, position, strand) triples, same order.  Run here on the
 jax-CPU backend — integer ops are exact on every backend, so CPU
-equality transfers to TPU.
+equality transfers to the GPU.
 """
 
 import numpy as np
@@ -81,7 +81,7 @@ def test_device_hash_table_bit_identical():
 
 
 def test_classifier_on_device_build_matches_host_build(monkeypatch):
-    """End to end: classification through a TPU-resident build equals
+    """End to end: classification through a device-resident build equals
     classification through the host build (runtime.Classifier picks the
     device table when BuiltIndex.device is set)."""
     import jax.numpy as jnp

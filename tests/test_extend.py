@@ -1,5 +1,6 @@
-"""Banded Smith–Waterman extension: jnp + Pallas(interpret) vs a
-straightforward numpy DP oracle, and end-to-end refinement sanity."""
+"""Banded Smith–Waterman extension: the jnp DP vs straightforward numpy
+DP oracles, the dispatch between it and the CUDA kernel, and the kernel
+itself against the jnp DP (on a GPU only)."""
 
 import numpy as np
 import pytest
@@ -56,7 +57,7 @@ def _mutate(rng, seq, sub, ins, dele):
     return np.asarray(out, np.uint8)
 
 
-@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+@pytest.mark.parametrize("impl", ["jnp"])
 def test_banded_sw_matches_gold(impl):
     rng = np.random.default_rng(0)
     W, L = 32, 96
@@ -76,12 +77,7 @@ def test_banded_sw_matches_gold(impl):
     diags = np.asarray(diags, np.int32)
 
     refwin = ex.extract_ref_windows(jnp.asarray(ref), jnp.asarray(diags), L, W)
-    if impl == "pallas":
-        score, mlen = ex.banded_sw_pallas(
-            jnp.asarray(q), refwin, jnp.asarray(lens), p, block_reads=8, interpret=True
-        )
-    else:
-        score, mlen = ex.banded_sw_jnp(jnp.asarray(q), refwin, jnp.asarray(lens), p)
+    score, mlen = ex.banded_sw(jnp.asarray(q), refwin, jnp.asarray(lens), p, impl=impl)
     score, mlen = np.asarray(score), np.asarray(mlen)
 
     for b in range(B):
@@ -125,28 +121,104 @@ def test_extend_hits_identity_perfect_vs_noisy():
     assert int(res.mlen[0]) == L
 
 
-@pytest.mark.parametrize("B,L", [(7, 300), (16, 1000)])
-def test_pairs_kernel_matches_jnp(B, L):
-    """Two-reads-per-row kernel (band<=64, parity-interleaved) computes
-    the exact packed-DP result, including odd batch sizes and short
-    reads."""
-    rng = np.random.default_rng(5)
-    W = 64
-    p = ex.ExtendParams(band=W)
-    ref = rng.integers(0, 4, 50_000).astype(np.uint8)
+def _band_inputs(rng, B, L, W, short_first=True):
+    """B reads of length L (the first one short) from a random reference,
+    10% substitutions, with their band windows."""
+    ref = rng.integers(0, 4, 50_000 + L).astype(np.uint8)
     starts = rng.integers(0, len(ref) - L - W, B)
     q = np.stack([ref[s : s + L] for s in starts])
     m = rng.random(q.shape) < 0.1
     q[m] = rng.integers(0, 4, int(m.sum()))
     lengths = np.full(B, L, np.int32)
-    lengths[0] = L // 3
-    q[0, L // 3 :] = 4
-    refwin = ex.extract_ref_windows(
-        jnp.asarray(ref), jnp.asarray(starts.astype(np.int32)), L, W
+    if short_first:
+        lengths[0] = L // 3
+        q[0, L // 3 :] = 4
+    refwin = np.asarray(
+        ex.extract_ref_windows(jnp.asarray(ref), jnp.asarray(starts.astype(np.int32)), L, W)
     )
-    s1, m1 = ex.banded_sw_jnp(jnp.asarray(q), refwin, jnp.asarray(lengths), p)
-    s2, m2 = ex.banded_sw_pairs(
-        jnp.asarray(q), refwin, jnp.asarray(lengths), p, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
+    return q, refwin, lengths
+
+
+# (B, L, band, scoring): the kernel's real shapes, odd B, short reads,
+# and the pair DP — past packed_mbits at 32 kb, or at a short length by
+# a match score too large for the packed int32 state
+SW_CASES = [
+    (7, 300, 64, {}),
+    (16, 1000, 64, {}),
+    (5, 64, 32, {}),
+    (3, 200, 128, {"max_gap": 0}),
+    (3, 300, 64, {"match": 1 << 14}),
+    (2, 32768, 64, {}),
+]
+
+
+@pytest.mark.parametrize("B,L,W,kw", SW_CASES)
+def test_banded_sw_jnp_matches_numpy_dp(B, L, W, kw):
+    """banded_sw_jnp == the vectorized numpy DP of chip_smoke (packed
+    and pair tie rules) at the CUDA kernel's shapes."""
+    import chip_smoke
+
+    rng = np.random.default_rng(B * L)
+    p = ex.ExtendParams(band=W, **kw)
+    q, refwin, lengths = _band_inputs(rng, B, L, W)
+    packed = bool(ex.packed_mbits(L, p))
+    assert packed == (L <= 16384 and "match" not in kw)
+    s1, m1 = ex.banded_sw_jnp(jnp.asarray(q), jnp.asarray(refwin), jnp.asarray(lengths), p)
+    gs, gm = chip_smoke.gold_banded_sw(q, refwin, lengths, p, packed)
+    np.testing.assert_array_equal(np.asarray(s1), gs)
+    np.testing.assert_array_equal(np.asarray(m1), gm)
+    assert (gs[1:] > 0).all()  # the reads really align in their bands
+
+
+def test_banded_sw_dispatch_by_backend(monkeypatch):
+    """"auto" takes the CUDA kernel only on a GPU backend and only for
+    the bands it was built for; never an interpret mode."""
+    from monica_tpu.ops import sw_cuda
+
+    assert ex.resolve_impl("auto", 64) == "jnp"  # CPU here
+    assert ex.resolve_impl("jnp", 64) == "jnp"
+    assert ex.resolve_impl("cuda", 64) == "cuda"
+    with pytest.raises(ValueError):
+        ex.resolve_impl("pallas", 64)
+    monkeypatch.setattr(ex.jax, "default_backend", lambda: "gpu")
+    assert ex.resolve_impl("auto", 64) == "cuda"
+    assert ex.resolve_impl("auto", 48) == "jnp"
+    assert all(ex.resolve_impl("auto", w) == "cuda" for w in sw_cuda.BANDS)
+    # the pipeline's knob reaches the dispatch unchanged
+    from monica_tpu.align import pipeline as pl
+
+    assert pl.ClassifyParams().extend_impl == "auto"
+
+
+def test_banded_sw_cuda_wrapper_contract(monkeypatch):
+    """What the CUDA wrapper hands the kernel, checked without a GPU:
+    pass counts, the DP choice, the band guard, and the nvcc command."""
+    from monica_tpu.ops import sw_cuda
+
+    assert [ex.prefix_passes(ex.ExtendParams(band=64, max_gap=g)) for g in (1, 2, 16, 17, 0)] == [0, 1, 4, 5, 6]
+    p = ex.ExtendParams(band=64)
+    assert ex.packed_mbits(16384, p) == 15 and ex.packed_mbits(32768, p) == 0
+    with pytest.raises(ValueError):
+        sw_cuda.banded_sw_cuda(jnp.zeros((2, 8), jnp.uint8), jnp.zeros((2, 56), jnp.uint8),
+                               jnp.zeros(2, jnp.int32), ex.ExtendParams(band=48), 4, 4)
+    monkeypatch.setattr(sw_cuda, "_nvcc", lambda: "nvcc")
+    cmd = sw_cuda._command(sw_cuda.library_path())
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cmd and ex.jax.ffi.include_dir() in cmd
+    assert sw_cuda.library_path().name.startswith("_libbanded_sw-")
+    assert sw_cuda.library_path().suffix == ".so"  # git-ignored build output
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,W,kw", SW_CASES)
+def test_banded_sw_cuda_matches_jnp(gpu_device, B, L, W, kw):
+    """The CUDA kernel computes the jnp DP's integers exactly."""
+    import jax
+
+    rng = np.random.default_rng(B + L)
+    p = ex.ExtendParams(band=W, **kw)
+    q, refwin, lengths = _band_inputs(rng, B, L, W)
+    args = [jax.device_put(a, gpu_device) for a in (q, refwin, lengths)]
+    s1, m1 = ex.banded_sw(*args, p, impl="cuda")
+    s0, m0 = ex.banded_sw_jnp(*[jnp.asarray(a) for a in (q, refwin, lengths)], p)
+    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s0))
+    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m0))

@@ -129,7 +129,7 @@ def test_sketch_reads_jax_slots():
 def test_segment_min_selection_equals_winnow_path():
     """sketch_reads_jax's fast path (seg >= w: skip the winnowing mask)
     must select BIT-IDENTICAL slots to the winnow-then-argmin path —
-    the segment argmin is provably a w-window minimum (PERF_r04)."""
+    the segment argmin is provably a w-window minimum."""
     import jax.numpy as jnp
 
     from monica_tpu.index import minimizer as mz

@@ -300,7 +300,7 @@ def test_giant_record_segmented_across_shards(monkeypatch):
 def test_packed_wire_format_matches_raw():
     """2-bit packed transfer (pack_codes_2bit -> unpack_codes) is
     bit-exact for ACGT reads and classify_batch_packed == classify_batch
-    (STREAM_r03: the wire format quarters host->device traffic)."""
+    (the wire format quarters host->device traffic)."""
     import numpy as np
     import jax.numpy as jnp
     from monica_tpu.io import encode as enc

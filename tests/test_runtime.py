@@ -73,7 +73,9 @@ def test_run_once_routes_counts_and_deletes(classifier, tmp_path):
     # tables export round-trips the MultiIndex schema
     norm, raw = export_tables(state2, clf.meta, out)
     assert (out / "monica.dataframe").exists()
-    assert raw.index.names == ["tax_unit", "accession"]
+    header = (out / "raw_monica.dataframe").read_text().splitlines()[0]
+    assert header == ",".join(["tax_unit", "accession", *raw.samples])
+    assert "s1" in raw.samples and set(raw.tax_units) <= set(clf.meta.tax_units)
 
 
 def test_classifier_mesh_matches_single_device(classifier, tmp_path):

@@ -1,5 +1,4 @@
 import numpy as np
-import pandas as pd
 import pytest
 
 from monica_tpu.index.build import IndexMeta
@@ -78,12 +77,16 @@ def test_dataframe_schema_roundtrip(tmp_path):
     norm, raw = ab.export_tables(state, meta, tmp_path)
 
     back = ab.read_dataframe(tmp_path / ab.DATAFRAME_FILENAME)
-    assert list(back.columns) == ["sampleA", "sampleB"]
-    assert ("Escherichia_coli", "AC1.1") in back.index
+    assert back.samples == ["sampleA", "sampleB"]
+    rows = list(zip(back.tax_units, back.accessions))
+    assert rows == [("Escherichia_coli", "AC1.1"), ("Escherichia_coli", "AC2.1"),
+                    ("Bacillus_subtilis", "AC3.1")]
     # absent pair is NaN, not 0 (sparse Counter semantics)
-    assert np.isnan(back.loc[("Bacillus_subtilis", "AC3.1"), "sampleB"])
+    assert np.isnan(back.values[2, 1])
     raw_back = ab.read_dataframe(tmp_path / ab.RAW_DATAFRAME_FILENAME)
-    assert raw_back.loc[("Escherichia_coli", "AC1.1"), "sampleA"] == 100
+    assert raw_back.values[0, 0] == 100
+    # the written values read back bit for bit
+    np.testing.assert_array_equal(back.values, norm.values)
 
 
 def test_barplot_renders(tmp_path):
@@ -116,10 +119,84 @@ def test_barplot_low_reads_filter(tmp_path):
 def test_by_taxunit_sums_accessions():
     from monica_tpu.plots import barplot as bp
 
-    idx = pd.MultiIndex.from_tuples(
-        [("E", "A1"), ("E", "A2"), ("B", "A3")], names=["tax_unit", "accession"]
-    )
-    df = pd.DataFrame({"s": [0.1, 0.2, np.nan]}, index=idx)
+    df = ab.AbundanceTable(["E", "E", "B"], ["A1", "A2", "A3"], ["s"],
+                           np.array([[0.1], [0.2], [np.nan]]))
     t = bp.by_taxunit(df)
-    assert t.loc["E", "s"] == pytest.approx(0.3)
-    assert t.loc["B", "s"] == pytest.approx(0.0)
+    assert t.taxa == ["E", "B"]  # first-appearance order
+    assert t.values[0, 0] == pytest.approx(0.3)
+    assert t.values[1, 0] == pytest.approx(0.0)
+
+
+def _pandas_frame(per_sample, meta, overnight=False):
+    """The former pandas export (MultiIndex frame, NaN for absent pairs)."""
+    pd = pytest.importorskip("pandas")
+    samples = sorted(per_sample)
+    mask = np.zeros(meta.n_accessions, bool)
+    for s in samples:
+        mask |= per_sample[s] != 0
+    idx = np.nonzero(mask)[0]
+    tax = [meta.tax_units[i].split("_")[0] if overnight else meta.tax_units[i] for i in idx]
+    index = pd.MultiIndex.from_arrays([tax, [meta.accessions[i] for i in idx]],
+                                      names=["tax_unit", "accession"])
+    data = {}
+    for s in samples:
+        col = per_sample[s][idx].astype(np.float64)
+        data[s] = np.where(col != 0, col, np.nan)
+    return pd.DataFrame(data, index=index)
+
+
+def pandas_csvs(state, meta, overnight=False):
+    """(monica.dataframe, raw_monica.dataframe) text as pandas wrote them."""
+    raw = _pandas_frame({s: c.astype(np.float64) for s, c in state.samples.items()}, meta, overnight)
+    norm = _pandas_frame(ab.normalize(state, meta.genome_lengths), meta, overnight)
+    return norm.to_csv(), raw.to_csv()
+
+
+@pytest.mark.parametrize("overnight", [False, True])
+def test_tables_byte_identical_to_pandas(tmp_path, overnight):
+    """The numpy CSV writer reproduces pandas' to_csv byte for byte:
+    shortest round-trip floats, empty NaN cells, quoting, sample order."""
+    rng = np.random.default_rng(7)
+    n = 30
+    meta = IndexMeta(
+        tax_units=[f"G{i % 7}_sp{i % 3}" + (",x" if i == 4 else "") for i in range(n)],
+        accessions=[f"AC{i}.1" for i in range(n)],
+        genome_lengths=rng.integers(10**5, 10**7, n),
+    )
+    state = ab.AbundanceState(n)
+    for s in ("zeta", "alpha", "mid sample"):
+        state.update(s, rng.integers(0, 5000, n) * (rng.random(n) < 0.6))
+    ab.export_tables(state, meta, tmp_path, overnight=overnight)
+    want_norm, want_raw = pandas_csvs(state, meta, overnight)
+    assert (tmp_path / ab.DATAFRAME_FILENAME).read_text() == want_norm
+    assert (tmp_path / ab.RAW_DATAFRAME_FILENAME).read_text() == want_raw
+
+
+def test_barplot_sums_and_ranking_match_pandas():
+    """by_taxunit equals pandas' groupby(level=0, sort=False).sum() bit
+    for bit, and the taxon ranking and "Other" fold equal pandas'
+    sort_values / sum — so the HTML carries the same numbers."""
+    pd = pytest.importorskip("pandas")
+    from monica_tpu.plots import barplot as bp
+
+    rng = np.random.default_rng(3)
+    for trial in range(20):
+        n = int(rng.integers(2, 40))
+        tu = [f"T{int(k)}" for k in rng.integers(0, 15, n)]
+        vals = rng.random((n, 3)) * (rng.random((n, 3)) < 0.7)
+        if trial % 4 == 0:
+            vals = np.round(vals, 1)  # ties in the ranking
+        vals[vals == 0] = np.nan
+        table = ab.AbundanceTable(tu, [f"A{i}" for i in range(n)], ["s1", "s2", "s3"], vals)
+        got = bp.by_taxunit(table)
+        want = table.to_pandas().fillna(0).groupby(level=0, sort=False).sum()
+        assert got.taxa == list(want.index)
+        np.testing.assert_array_equal(got.values, want.to_numpy())
+        order = [got.taxa[i] for i in bp._rank_descending(got.values.max(axis=1))]
+        assert order == want.max(axis=1).sort_values(ascending=False).index.tolist()
+        rest = order[8:]
+        if rest:
+            ranked = bp._rank_descending(got.values.max(axis=1))
+            np.testing.assert_array_equal(
+                got.values[ranked[8:]].T.sum(axis=1), want.loc[rest].sum(axis=0).to_numpy()
+            )
